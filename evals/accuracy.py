@@ -13,7 +13,7 @@ adapters, src/gen_cons.c:227-233):
     identity = 1 - edit_distance(cons, unit+unit infix) / len(cons)
 
 Usage:
-    python evals/accuracy.py [--reads N] [--device tpu|off] [--configs all]
+    python evals/accuracy.py [--reads N] [--device gpu|cpu|off] [--configs all]
 
 Prints one line per config: detection rate (reads with >=1 consensus
 call), mean/median consensus identity, and mean copy-number error.
@@ -115,7 +115,7 @@ def evaluate(n_reads: int, device: str, configs, msa: str = "profile") -> int:
         # axis — the comparison isolates the MSA model.
         os.environ["TH_MSA"] = "graph"
     mtp = Params()
-    if device in ("tpu", "cpu"):
+    if device in ("gpu", "cpu"):
         from tidehunter_tpu.engine import make_engine
 
         process = make_engine(
@@ -168,7 +168,7 @@ def evaluate(n_reads: int, device: str, configs, msa: str = "profile") -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reads", type=int, default=50)
-    ap.add_argument("--device", default="tpu", choices=["tpu", "cpu", "off"])
+    ap.add_argument("--device", default="gpu", choices=["gpu", "cpu", "off"])
     ap.add_argument("--configs", default="all")
     ap.add_argument(
         "--msa", default="profile", choices=["profile", "graph"],

@@ -3,8 +3,8 @@
 Replaces every BatchAligner device round and the DeviceMSA with host-side
 stubs that return shape-correct answers at near-zero cost, so the measured
 wall time is pure host orchestration: parse/encode/seed/chain/partition
-walks/consensus generators/output. This is the per-read budget the 1-core
-host burns no matter how fast the chip is — the pipelined runner can only
+walks/consensus generators/output. This is the per-read budget the host
+burns no matter how fast the card is — the pipelined runner can only
 hide device WAIT time, not host CPU time.
 
 Usage: python evals/host_floor.py [n_reads] [--profile]
@@ -27,7 +27,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from bench import synth_read  # noqa: E402
+from tidehunter_tpu.tools.synth import synth_read  # noqa: E402
 from tidehunter_tpu.io.fastx import FastxRecord  # noqa: E402
 from tidehunter_tpu.params import Params  # noqa: E402
 from tidehunter_tpu import engine as eng_mod  # noqa: E402
@@ -41,7 +41,7 @@ class InstantAligner:
     still runs (consensus, records, output) though outputs are garbage —
     only the host cost is being measured."""
 
-    use_wavefront = False
+    kernels = False
     host_aln_cap = 192   # sync native walk path reads this off the aligner
 
     def run_global(self, reqs, scores=None):
@@ -89,8 +89,8 @@ def main() -> int:
     engine.aligner = InstantAligner()
     engine._device_msa = InstantMSA()
     engine.msa_mode = "profile"
-    # force the device-MSA branch (use_wavefront False would take the host
-    # oracle): resolve 'msa' via InstantMSA directly
+    # the cpu engine would take the host MSA oracle: resolve 'msa' via
+    # InstantMSA directly
     engine._resolve_msa = (
         lambda regions: engine._device_msa.consensus_batch(regions)
     )

@@ -4,7 +4,7 @@
  *   ./dump in.fa [k w hpc min_p max_p max_div]
  *       Golden dump: per read, hit count + per chain (n_cells, est_period,
  *       est_start, partition positions).  Used to pin bit-exact targets for
- *       the TPU rebuild's tests.
+ *       the rebuild's tests.
  *
  *   ./dump -t in.fa [reps] [n_thread]
  *       Timing: run tidehunter_core over all reads (per-read pipeline through

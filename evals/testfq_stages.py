@@ -1,31 +1,36 @@
-"""test.fq stage attribution on the live device: 1 warmup + N reps,
-steady-state METRICS deltas per rep.  Produced evals/hw_r05/testfq_stages*
-(used to find the MSA row-utilization fix, msa_device._sub_b)."""
+"""Stage attribution for one FASTA/FASTQ file on the GPU: 1 warmup + N
+reps, steady-state METRICS deltas per rep.
+
+    python evals/testfq_stages.py reads.fq [reps]
+"""
 import io
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tidehunter_tpu.params import Params
-from tidehunter_tpu.engine import make_engine
-from tidehunter_tpu.pipeline import runner
-from tidehunter_tpu.utils.metrics import METRICS
+from tidehunter_tpu.params import Params  # noqa: E402
+from tidehunter_tpu.engine import make_engine  # noqa: E402
+from tidehunter_tpu.pipeline import runner  # noqa: E402
+from tidehunter_tpu.utils.metrics import METRICS  # noqa: E402
 
-import jax
+import jax  # noqa: E402
 
 plat = jax.devices()[0].platform
 print(f"[{time.ctime()}] device engine ready (platform={plat})", flush=True)
 
 mtp = Params()
 mtp.chunk_read_n = 100
-engine = make_engine(mtp, platform="tpu")
-testfq = "/root/reference/test.fq"
+engine = make_engine(mtp, platform="gpu")
+testfq = sys.argv[1]
+n_reads = sum(1 for _ in __import__(
+    "tidehunter_tpu.io.fastx", fromlist=["read_fastx"]).read_fastx(testfq))
 
 runner.run(testfq, mtp, out=io.StringIO(), process_chunk=engine)  # warmup
 METRICS.reset()
 prev = METRICS.snapshot()
-for rep in range(int(sys.argv[1]) if len(sys.argv) > 1 else 3):
+for rep in range(int(sys.argv[2]) if len(sys.argv) > 2 else 3):
     t0 = time.perf_counter()
     runner.run(testfq, mtp, out=io.StringIO(), process_chunk=engine)
     dt = time.perf_counter() - t0
@@ -34,7 +39,7 @@ for rep in range(int(sys.argv[1]) if len(sys.argv) > 1 else 3):
     prev = cur
     stages = " ".join(
         f"{k[5:-2]}={d[k]:.2f}s" for k in sorted(d) if k.startswith("time_"))
-    print(f"rep{rep}: {100 / dt:.1f} reads/s | {stages}", flush=True)
+    print(f"rep{rep}: {n_reads / dt:.1f} reads/s | {stages}", flush=True)
     print(
         f"   kernel_calls={d.get('rounds', 0):g} "
         f"wf_use={d.get('wf_cells', 0) / 1e6:.0f}M/"

@@ -70,7 +70,7 @@ def test_detect_input_kinds_and_params():
     with pytest.raises(TypeError, match="unknown parameter"):
         detect([s], not_a_param=1)
     with pytest.raises(ValueError, match="device"):
-        Detector(device="gpu")
+        Detector(device="npu")
 
 
 def test_run_file_matches_cli_serialization(tmp_path):

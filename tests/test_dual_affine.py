@@ -155,15 +155,13 @@ def test_profile_consensus_dual_affine_smoke():
     assert np.mean(cons == unit[: len(cons)]) > 0.5
 
 
-def test_device_msa_dual_affine_matches_host(monkeypatch):
+def test_device_msa_dual_affine_matches_host():
     """DeviceMSA (Pallas interpreter) == host profile_consensus under the
     convex gap model, including regions with long indels where track 2
     (O2=24, E2=1) wins over track 1 (O1=4, E1=2)."""
     from tidehunter_tpu.ops import msa_device as MD
 
-    monkeypatch.setattr(MD, "INTERPRET", True)
-    monkeypatch.setattr(MD, "_B_CAP", 8)
-    dm = MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1)
+    dm = MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1, interpret=True)
     rng = np.random.default_rng(77)
     regions = []
     for _ in range(10):
@@ -195,14 +193,12 @@ def test_device_msa_dual_affine_matches_host(monkeypatch):
         np.testing.assert_array_equal(r[1], want[1])
 
 
-def test_device_msa_single_affine_unchanged(monkeypatch):
+def test_device_msa_single_affine_unchanged():
     """Default DeviceMSA (no O2/E2) still equals the single-affine host
     path bit-for-bit (track 2 is constructed strictly dominated)."""
     from tidehunter_tpu.ops import msa_device as MD
 
-    monkeypatch.setattr(MD, "INTERPRET", True)
-    monkeypatch.setattr(MD, "_B_CAP", 8)
-    dm = MD.DeviceMSA(2, 4, 4, 2)
+    dm = MD.DeviceMSA(2, 4, 4, 2, interpret=True)
     rng = np.random.default_rng(78)
     regions = []
     for _ in range(6):
@@ -221,7 +217,7 @@ def test_device_msa_single_affine_unchanged(monkeypatch):
         np.testing.assert_array_equal(r[1], want[1])
 
 
-def test_device_msa_banded_matches_host(monkeypatch):
+def test_device_msa_banded_matches_host():
     """Banded DeviceMSA == banded host mirror at a banded bucket,
     including a band-touching region that both sides retry through the
     full kernels (interpret mode; band lowered to the T=512 bucket so
@@ -229,9 +225,7 @@ def test_device_msa_banded_matches_host(monkeypatch):
     from tidehunter_tpu.ops import msa_device as MD
     from tidehunter_tpu.ops.poa_profile import banded_profile_consensus
 
-    monkeypatch.setattr(MD, "INTERPRET", True)
-    monkeypatch.setattr(MD, "_B_CAP", 8)
-    dm = MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1)
+    dm = MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1, interpret=True)
     rng = np.random.default_rng(99)
     regions = []
     for i in range(6):
@@ -258,15 +252,12 @@ def test_device_msa_banded_matches_host(monkeypatch):
         np.testing.assert_array_equal(r[1], want[1])
 
 
-def test_device_msa_banded_sliding_window(monkeypatch):
-    """T=1024 bucket: the band window (WP=640) actually slides — every
-    128-lane advance/shift path in the kernel executes. One region,
-    interpret mode."""
+def test_device_msa_banded_sliding_window():
+    """T=1024 bucket: the band window actually slides — every shift row
+    of the kernel executes. One region, interpret mode."""
     from tidehunter_tpu.ops import msa_device as MD
     from tidehunter_tpu.ops.poa_profile import banded_profile_consensus
 
-    monkeypatch.setattr(MD, "INTERPRET", True)
-    monkeypatch.setattr(MD, "_B_CAP", 8)
     rng = np.random.default_rng(123)
     unit = rng.integers(0, 4, 800)
     us = []
@@ -274,7 +265,7 @@ def test_device_msa_banded_sliding_window(monkeypatch):
         u = np.where(rng.random(800) < 0.08,
                      rng.integers(0, 4, 800), unit)
         us.append(u.astype(np.uint8))
-    dm = MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1)
+    dm = MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1, interpret=True)
     got = dm.consensus_batch([us])
     want = banded_profile_consensus(us, 2, 4, 4, 2,
                                     gap_open2=24, gap_ext2=1)

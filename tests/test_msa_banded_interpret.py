@@ -1,9 +1,8 @@
 """Banded MSA kernel parity on CPU via the Pallas interpreter.
 
-The hardware-gated suite (tests/test_msa_device.py) checks the banded
-kernels on a real chip, but nothing exercised them on CPU between rounds
-(VERDICT r2 weak #5). This test drives DeviceMSA.consensus_batch through
-the interpreter (ops/msa_device.INTERPRET) at banded rungs — W=128 at
+The `gpu` suite (tests/test_msa_device.py) checks the banded kernels on
+the card; this test drives DeviceMSA.consensus_batch through the
+interpreter (interpret=True) at banded rungs — W=128 at
 T=256 and W=256 at T=384 (ladder rule: ops/poa_profile.band_ladder) —
 and asserts bit-equality with the banded host mirror
 (ops/poa_profile.banded_profile_consensus), the same contract the
@@ -31,11 +30,8 @@ def _mut(rng, u, err):
     return np.array(out, np.uint8)
 
 
-def test_banded_msa_interpret_parity(monkeypatch):
+def test_banded_msa_interpret_parity():
     from tidehunter_tpu.ops import msa_device as MD
-
-    monkeypatch.setattr(MD, "INTERPRET", True)
-    monkeypatch.setattr(MD, "_B_CAP", 4)
 
     rng = np.random.default_rng(11)
     regions = []
@@ -54,7 +50,7 @@ def test_banded_msa_interpret_parity(monkeypatch):
     assert band_ladder(384, spread)[0] == 256
     regions.append(units)
 
-    msa = MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1)
+    msa = MD.DeviceMSA(2, 4, 4, 2, gap_open2=24, gap_ext2=1, interpret=True)
     res = msa.consensus_batch(regions)
     for reg, got in zip(regions, res):
         want = banded_profile_consensus(

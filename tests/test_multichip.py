@@ -1,35 +1,27 @@
-"""Production multi-chip path on the virtual 8-device CPU mesh.
+"""Production multi-device path on the virtual 8-device CPU mesh.
 
-The REAL engine kernels — Pallas wavefront (ops/wavefront.py) and
-device-MSA (ops/msa_device.py) — run through the Pallas interpreter,
-sharded over a 1-D 'dp' mesh with jax.shard_map exactly as on hardware,
-and must produce records bit-identical to the single-device host-oracle
-pipeline (the reference's pthread fan-out role, reference
-src/main.c:273-291, per SURVEY §5.8).
+The REAL engine kernels — the Pallas wavefront (ops/wavefront.py) and
+device-MSA (ops/msa_device.py) — run through the Pallas interpreter
+(interpret=True), sharded over a 1-D 'dp' mesh with jax.shard_map exactly
+as on the cards, and must produce records bit-identical to the
+single-device host-oracle pipeline (the reference's pthread fan-out role,
+reference src/main.c:273-291, per SURVEY §5.8).
 """
-
-import os
 
 import numpy as np
 import pytest
 
 import jax
 
+from tidehunter_tpu.tools.synth import synth_read
+
 
 @pytest.fixture()
-def interpret_mesh(monkeypatch):
+def interpret_mesh():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from tidehunter_tpu.ops import msa_device as MD
-    from tidehunter_tpu.ops import wavefront as WF
     from tidehunter_tpu.parallel import mesh as PM
 
-    monkeypatch.setattr(WF, "INTERPRET", True)
-    monkeypatch.setattr(WF, "_TILE_CELLS", 1024)
-    monkeypatch.setattr(WF, "_FIXED_CELLS", 2048)
-    monkeypatch.setattr(MD, "INTERPRET", True)
-    monkeypatch.setattr(MD, "_B_CAP", 8)
-    monkeypatch.setenv("TH_FORCE_WAVEFRONT", "1")
     m = PM.make_mesh(8)
     yield m
     PM.set_active_mesh(None)
@@ -49,7 +41,6 @@ def test_engine_mesh_matches_oracle_synthetic(interpret_mesh, monkeypatch,
     # waves=2 exercises the opt-in wave-split consensus drive (engine
     # TH_DRIVE_WAVES — concurrent _drive threads sharing the device)
     # through the full production mesh path; default stays 1
-    import __graft_entry__ as G
     from tidehunter_tpu.engine import Engine
     from tidehunter_tpu.io.fastx import FastxRecord
     from tidehunter_tpu.params import Params
@@ -60,14 +51,15 @@ def test_engine_mesh_matches_oracle_synthetic(interpret_mesh, monkeypatch,
     reads = [
         FastxRecord(
             name=f"m{i}", comment="",
-            seq=G._tandem_read(rng, unit_len=55, copies=4, err=0.06,
+            seq=synth_read(rng, unit_len=55, copies=4, err=0.06,
                                flank=25),
         )
         for i in range(10)
     ]
     mtp = Params()
-    engine = Engine(mtp, platform="tpu", mesh=interpret_mesh)
-    assert engine.aligner.use_wavefront
+    engine = Engine(mtp, platform="gpu", mesh=interpret_mesh,
+                    interpret=True)
+    assert engine.aligner.kernels
     results = engine(reads, mtp)
     for rec, res in zip(reads, results):
         want = tidehunter_core(rec.seq, mtp)
@@ -82,7 +74,8 @@ def test_engine_mesh_matches_oracle_test_data(interpret_mesh, test_data):
 
     reads = list(read_fastx(str(test_data / "test_50x4.fa")))
     mtp = Params()
-    engine = Engine(mtp, platform="tpu", mesh=interpret_mesh)
+    engine = Engine(mtp, platform="gpu", mesh=interpret_mesh,
+                    interpret=True)
     results = engine(reads, mtp)
     for rec, res in zip(reads, results):
         want = tidehunter_core(rec.seq, mtp)
@@ -96,7 +89,6 @@ def test_engine_mesh_matches_oracle_test_data(interpret_mesh, test_data):
 def test_mesh_vs_single_device_engine(interpret_mesh):
     """Mesh engine == single-device engine (same interpret kernels),
     record for record."""
-    import __graft_entry__ as G
     from tidehunter_tpu.engine import Engine
     from tidehunter_tpu.io.fastx import FastxRecord
     from tidehunter_tpu.params import Params
@@ -106,14 +98,16 @@ def test_mesh_vs_single_device_engine(interpret_mesh):
     reads = [
         FastxRecord(
             name=f"s{i}", comment="",
-            seq=G._tandem_read(rng, unit_len=48, copies=5, err=0.08,
+            seq=synth_read(rng, unit_len=48, copies=5, err=0.08,
                                flank=40),
         )
         for i in range(6)
     ]
     mtp = Params()
-    meshed = Engine(mtp, platform="tpu", mesh=interpret_mesh)(reads, mtp)
+    meshed = Engine(mtp, platform="gpu", mesh=interpret_mesh,
+                    interpret=True)(reads, mtp)
     set_active_mesh(None)
-    single = Engine(mtp, platform="tpu", mesh=None)(reads, mtp)
+    single = Engine(mtp, platform="gpu", mesh=None,
+                    interpret=True)(reads, mtp)
     for a, b in zip(meshed, single):
         assert _records_key(a) == _records_key(b)

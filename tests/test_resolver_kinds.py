@@ -1,6 +1,6 @@
 """Engine._resolve_batch concurrency contract: a drive round mixing every
-request kind resolves each kind on a thread pool (overlapped tunnel round
-trips); results must be positionally identical to the serialized path
+request kind resolves each kind on a thread pool (overlapped device
+rounds); results must be positionally identical to the serialized path
 (TH_SERIAL_KINDS=1) regardless of completion order.  Kind semantics per
 the generator protocol in engine.py (reference roles: ksw2_align.c /
 edlib_align.c / abpoa_cons.c adapters)."""
@@ -53,7 +53,7 @@ def _mk_reqs(rng):
 
 @pytest.fixture()
 def engine(monkeypatch):
-    eng = Engine(Params(), platform="tpu")
+    eng = Engine(Params(), platform="gpu", interpret=True)
     monkeypatch.setattr(eng, "aligner", _FakeAligner())
     monkeypatch.setattr(
         eng, "_resolve_msa",

@@ -1,18 +1,19 @@
-"""TideHunter-TPU: a TPU-native tandem repeat detection and consensus engine.
+"""TideHunter-TPU: an accelerator-native tandem repeat detection and
+consensus engine in JAX, running on NVIDIA GPUs.
 
 A from-scratch reimplementation of the capabilities of TideHunter
-(yangao07/TideHunter v1.5.5) designed for TPU hardware: batched, padded,
-bucketed tensor pipelines in JAX/XLA/Pallas, data-parallel over device
-meshes, with a host-side streaming runtime.
+(yangao07/TideHunter v1.5.5): batched, padded, bucketed tensor pipelines
+in JAX/XLA with Pallas-Triton kernels, data-parallel over device meshes,
+with a host-side streaming runtime.
 
 Layers (mirroring reference layer map, SURVEY.md §1):
   io/        - FASTA/FASTQ streaming, 2-bit codec, output serializers
   ops/       - compute kernels: seeding, chaining, affine-gap DP (ksw2
                equivalent), Myers edit distance (edlib equivalent), POA
                consensus (abPOA equivalent); each with a NumPy oracle and
-               a JAX/Pallas TPU path
+               a JAX (XLA or Pallas-Triton) device path
   pipeline/  - per-read orchestration and the chunked streaming runner
-  parallel/  - device mesh / sharding for multi-chip, multi-host scale-out
+  parallel/  - device mesh / sharding for multi-card, multi-host scale-out
   utils/     - logging, timers, metrics
 """
 

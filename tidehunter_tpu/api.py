@@ -12,7 +12,7 @@ also be importable. This module exposes the same pipeline the CLI drives
         print(rec.seq, rec.copy_num, rec.ave_match)
 
     # reusable device engine (compiles kernels once, batches across calls)
-    with Detector(device="tpu", k=8, w=1) as det:
+    with Detector(device="gpu", k=8, w=1) as det:
         results = det.detect(seqs)
         det.run_file("reads.fq.gz", out=open("cons.fa", "w"))
 
@@ -60,9 +60,10 @@ def _as_record(i: int, s: SeqLike) -> FastxRecord:
 class Detector:
     """Reusable detection pipeline with an optional device engine.
 
-    ``device``: "off" (host oracle, no JAX), "cpu", or "tpu" (batched
-    device engine via ``engine.make_engine``; kernel compiles are paid on
-    the first call and cached for the detector's lifetime). Engine
+    ``device``: "off" (host oracle, no JAX), "cpu" (plain-XLA alignment
+    on JAX's CPU backend), or "gpu" (the batched device engine via
+    ``engine.make_engine``; needs a GPU backend; kernel compiles are paid
+    on the first call and kept in the persistent compile cache). Engine
     construction is lazy, so building a Detector never touches a device.
 
     Keyword arguments are ``Params`` field overrides (k, w, hpc, min_copy,
@@ -72,8 +73,8 @@ class Detector:
     """
 
     def __init__(self, device: str = "off", mesh=None, **params):
-        if device not in ("tpu", "cpu", "off"):
-            raise ValueError("device must be 'tpu', 'cpu' or 'off'")
+        if device not in ("gpu", "cpu", "off"):
+            raise ValueError("device must be 'gpu', 'cpu' or 'off'")
         self.params = _make_params(params)
         self.device = device
         self._mesh = mesh
@@ -91,7 +92,9 @@ class Detector:
             return None  # runner falls back to the sequential host oracle
         if self._engine is None:
             from .engine import make_engine
+            from .utils.compile_cache import enable_compile_cache
 
+            enable_compile_cache()
             self._engine = make_engine(
                 self.params, platform=self.device, mesh=self._mesh
             )

@@ -2,8 +2,8 @@
 
 Option surface, defaults, validation rules and error semantics mirror the
 reference CLI (reference src/main.c:16-52 option table, 443-529 switch),
-plus TPU-specific flags that have no reference equivalent (--device,
---mesh, --resume).
+plus device and run flags that have no reference equivalent (--device,
+--resume, --metrics, --profile, --polish, --msa, --shard, --dist).
 """
 
 from __future__ import annotations
@@ -80,8 +80,10 @@ def usage() -> int:
     e(f"    -f --out-fmt     INT    output format [{FASTA_FMT}]: 1 FASTA, 2 Tabular, 3 FASTQ, 4 Tabular+qual\n")
     e("  Computing resource:\n")
     e(f"    -t --thread      INT    number of host worker threads [{THREAD_N}]\n")
-    e("  TPU (no reference equivalent):\n")
-    e("    --device STR            kernel dispatch: tpu | cpu | off [tpu]\n")
+    e("  Device (no reference equivalent):\n")
+    e("    --device STR            gpu (kernels on the card; fails without one) |\n")
+    e("                            cpu (plain XLA on the host) | off (host\n")
+    e("                            oracle, no JAX) [gpu]\n")
     e("    --resume STR            progress-cursor file for checkpoint/restart [off]\n")
     e("    --metrics STR           write structured run metrics JSON to file [off]\n")
     e("    --profile STR           write a JAX profiler trace (TensorBoard/Perfetto)\n")
@@ -137,7 +139,7 @@ def parse_args(argv: List[str]):
     """getopt-style parse. Returns (params, input_path, extra) or an int exit
     code. Mirrors main.c:443-529 including validation messages."""
     mtp = Params()
-    extra = {"device": "tpu", "resume": None, "output": None,
+    extra = {"device": "gpu", "resume": None, "output": None,
              "metrics": None, "shard": None, "profile": None,
              "dist": None, "msa": "profile"}
     pos: List[str] = []
@@ -157,6 +159,11 @@ def parse_args(argv: List[str]):
         if tok == "--device":
             val = need_arg(tok)
             if val is None:
+                return 1
+            if val not in ("gpu", "cpu", "off"):
+                sys.stderr.write(
+                    f"\n[main] Error: --device needs gpu|cpu|off, got '{val}'.\n"
+                )
                 return 1
             extra["device"] = val
         elif tok == "--resume":
@@ -396,34 +403,41 @@ def main(argv: Optional[List[str]] = None) -> int:
         log(f"jax.distributed: process {dist[2]}/{dist[1]} "
             f"(coordinator {dist[0]})")
 
+    device = extra["device"]
+    if device != "off":
+        from .engine import check_backend
+        from .utils.compile_cache import enable_compile_cache
+
+        try:
+            check_backend(device)
+        except RuntimeError as exc:
+            sys.stderr.write(f"\n[main] Error: {exc}.\n")
+            return 1
+        enable_compile_cache()
+
     shard = extra["shard"]
-    if shard is None and (dist is not None
-                          or extra["device"] in ("tpu", "cpu")):
-        # auto-shard under jax.distributed (multi-host pod slice); derive
+    if shard is None and (dist is not None or device != "off"):
+        # auto-shard under jax.distributed (multi-host); derive
         # per-process output/resume paths so hosts on shared storage don't
         # clobber one file with partial shards (each host writes its 1/N)
-        try:
-            import jax
+        import jax
 
-            if jax.process_count() > 1:
-                shard = (jax.process_index(), jax.process_count())
-                sfx = f".shard{shard[0]}-of-{shard[1]}"
-                note = ""
-                if extra["output"]:
-                    extra["output"] += sfx
-                    note += f"; output -> {extra['output']}"
-                if extra["resume"]:
-                    extra["resume"] += sfx
-                    note += f"; resume -> {extra['resume']}"
-                log(f"auto input shard {shard[0]}/{shard[1]}{note}")
-        except Exception:  # noqa: BLE001
-            pass
+        if jax.process_count() > 1:
+            shard = (jax.process_index(), jax.process_count())
+            sfx = f".shard{shard[0]}-of-{shard[1]}"
+            note = ""
+            if extra["output"]:
+                extra["output"] += sfx
+                note += f"; output -> {extra['output']}"
+            if extra["resume"]:
+                extra["resume"] += sfx
+                note += f"; resume -> {extra['resume']}"
+            log(f"auto input shard {shard[0]}/{shard[1]}{note}")
 
     out = None
     if extra["output"]:
         out = open(extra["output"], "w")
         mtp.cons_out = out
-    mtp.use_tpu = extra["device"] == "tpu"
 
     from .pipeline import runner
 
@@ -434,20 +448,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         os.environ["TH_MSA"] = "graph"
 
     process_chunk = None
-    if extra["device"] in ("tpu", "cpu"):
-        try:
-            from .engine import make_engine
+    if device != "off":
+        from .engine import make_engine
 
-            process_chunk = make_engine(
-                mtp, platform=extra["device"],
-                msa_mode="poa" if extra["msa"] == "graph" else "profile")
-        except Exception as exc:  # noqa: BLE001 - fall back to oracle path
-            log(f"device engine unavailable ({exc}); using host oracle path")
+        process_chunk = make_engine(
+            mtp, platform=device,
+            msa_mode="poa" if extra["msa"] == "graph" else "profile")
 
     profile_cm = None
     if extra["profile"]:
         # SURVEY §5.1: structured per-stage timers (utils/metrics) plus a
-        # real JAX profiler trace (XLA/TPU timeline, viewable in
+        # real JAX profiler trace (XLA device timeline, viewable in
         # TensorBoard or Perfetto)
         try:
             import jax

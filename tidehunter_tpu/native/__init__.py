@@ -1,15 +1,20 @@
 """Native host kernels (C, loaded via ctypes).
 
-The TPU owns the batched compute path; irregular host control flow that the
-reference ran in C (the chaining DP with data-dependent early exits,
-reference src/tandem_chain.c) stays native here too. The shared library is
-built on demand from the vendored source with the system compiler and
-cached next to it.
+Irregular host control flow that the reference ran in C (the chaining DP
+with data-dependent early exits, reference src/tandem_chain.c; seeding;
+the partition walk's small alignments; graph-POA) stays native here too.
+The shared library is built from the committed sources on first use, with
+the system compiler, into ``.native_build/`` at the checkout root (git
+ignores it).  The file name carries a hash of the sources, the compiler
+and its flags, so a changed source or flag builds a new library and a
+stale one is never loaded.  Portable flags only: the library must load on
+any x86-64 or arm64 host that runs the checkout.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import sys
@@ -18,34 +23,34 @@ from typing import Optional
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, "chainx.c"), os.path.join(_DIR, "seedx.c"),
          os.path.join(_DIR, "alignx.c"), os.path.join(_DIR, "poax.c")]
-_LIB = os.path.join(_DIR, "libchainx.so")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
+                          ".native_build")
+_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> bool:
+def lib_path() -> str:
     cc = os.environ.get("CC", "cc")
-    # -O3 -march=native: integer-only hot loops (chain DP, seeding hash,
-    # inline ksw2 walk) — bit-exactness is unaffected and re-verified by
-    # the golden tests; falls back to -O2 if the host rejects the flags.
-    cmd = [cc, "-O3", "-march=native", "-shared", "-fPIC", "-o",
-           _LIB] + _SRCS
+    h = hashlib.sha256(" ".join([cc] + _FLAGS).encode())
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD_DIR, f"libchainx-{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> bool:
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [os.environ.get("CC", "cc")] + _FLAGS + ["-o", tmp] + _SRCS
     try:
         subprocess.run(cmd, check=True, capture_output=True)
-        return True
-    except subprocess.CalledProcessError:
-        pass
-    except FileNotFoundError as exc:
-        print(f"[native] build failed: {exc}", file=sys.stderr)
-        return False
-    cmd = [cc, "-O2", "-shared", "-fPIC", "-o", _LIB] + _SRCS
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        return True
     except (subprocess.CalledProcessError, FileNotFoundError) as exc:
         print(f"[native] build failed: {exc}", file=sys.stderr)
         return False
+    os.replace(tmp, path)     # atomic: concurrent builders never see half
+    return True
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -54,13 +59,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB) or any(
-        os.path.getmtime(_LIB) < os.path.getmtime(src) for src in _SRCS
-    ):
-        if not _build():
-            return None
+    path = lib_path()
+    if not os.path.exists(path) and not _build(path):
+        return None
     try:
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(path)
     except OSError as exc:
         print(f"[native] load failed: {exc}", file=sys.stderr)
         return None

@@ -12,9 +12,9 @@
  *
  * Why host-side: the partition walk's alignments are TINY (mean ~34 bp,
  * max ~100 on the headline workload) and strictly sequential per chain —
- * a device dispatch round costs ~25 ms on this platform while the whole
+ * a device dispatch round costs far more than the whole
  * 34x34 DP is ~2 us of scalar C. Routing them here removes EVERY
- * partition-stage device round trip; the TPU keeps the large batched DP
+ * partition-stage device round trip; the device keeps the large batched DP
  * (MSA, aveMatch identities, boundary extensions).
  *
  * Scoring is the reference's hard-coded model (src/ksw2_align.c:11-17):

@@ -10,7 +10,7 @@
  * behavioral spec established by the Python oracle (ops/chaining.py), which
  * is itself pinned to the reference by golden tests.
  *
- * The chain DP is host-side control flow in the TPU build (irregular,
+ * The chain DP is host-side control flow in this engine (irregular,
  * data-dependent early exits); this keeps it off the Python interpreter.
  *
  * Build: cc -O2 -shared -fPIC -o libchainx.so chainx.c

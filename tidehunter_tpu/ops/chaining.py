@@ -12,7 +12,7 @@ in sort_chain (tandem_chain.c:188-207, which can duplicate an index when
 three or more live chains reorder) is reproduced so chain selection is
 bit-identical.
 
-The TPU path (ops/chaining_jax.py) re-expresses the DP as a masked
+The device path (ops/chaining_jax.py) re-expresses the DP as a masked
 fixed-window predecessor scan over padded per-read hit matrices; this oracle
 is its ground truth.
 """

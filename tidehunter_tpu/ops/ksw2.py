@@ -3,7 +3,7 @@
 Re-derivation of the Suzuki-Kasahara difference recurrence exactly as the
 reference's SIMD kernel evaluates it (reference ksw2/ksw2_extz2_sse.c:26-303),
 vectorized over anti-diagonals with NumPy. This is both the host oracle used
-for byte-parity testing and the shape blueprint for the Pallas TPU kernel
+for byte-parity testing and the shape blueprint for the GPU kernels
 (ops/wavefront.py): the same wavefront runs there vectorized over the
 anti-diagonal *and* a batch of alignment problems.
 

@@ -3,8 +3,8 @@
 The same Suzuki-Kasahara difference recurrence as the NumPy oracle
 (reference ksw2/ksw2_extz2_sse.c), vectorized over BOTH the anti-diagonal
 and a batch of alignment problems: state arrays are [B, T] int32, the row
-loop is a lax.scan, and everything runs under jit on TPU (or the CPU mesh in
-tests). Alignment problems of different sizes are padded to bucket shapes
+loop is a lax.scan, and everything runs under jit: the cpu engine's
+alignment path, and the plain-XLA form the GPU kernels were timed against. Alignment problems of different sizes are padded to bucket shapes
 (LQ, LT) with per-problem lengths; padded rows/cells are masked.
 
 Two entry points:
@@ -31,7 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .ksw2 import GAP_EXT, GAP_OPEN, MATCH_SC, MAX_SC, MIS_SC, QE, QE2, SC_N
+from .ksw2 import GAP_EXT, GAP_OPEN, MATCH_SC, MIS_SC
 
 NEG_INF32 = jnp.int32(-(1 << 30))
 
@@ -223,47 +223,6 @@ def _backtrack_one(dirs, q, t, qlen, tlen, q_left_ext):
     return iden, tleft
 
 
-def _backtrack_ops_one(dirs, qlen, tlen, max_steps):
-    """Device cigar walk emitting per-step ops (0=M 1=D 2=I, 3=pad) in
-    backtrack (right-to-left) order; returns (ops [max_steps], n_steps).
-    Trailing boundary runs (leading cigar D/I) are appended explicitly."""
-    ops = jnp.full(max_steps, 3, jnp.int8)
-
-    def cond(st):
-        i, j, state, ops, n = st
-        return (i >= 0) & (j >= 0)
-
-    def body(st):
-        i, j, state, ops, n = st
-        tmp = dirs[i + j, i].astype(jnp.int32)
-        state = jnp.where(state == 0, tmp & 7, state)
-        state = jnp.where(
-            (state != 0) & (((tmp >> (state + 2)) & 1) == 0), tmp & 7, state
-        )
-        is_m = state == 0
-        is_d = state == 1
-        op = jnp.where(is_m, 0, jnp.where(is_d, 1, 2)).astype(jnp.int8)
-        ops = ops.at[n].set(op)
-        i = i - jnp.where(is_m | is_d, 1, 0)
-        j = j - jnp.where(is_m | (~is_d), 1, 0)
-        return (i, j, state, ops, n + 1)
-
-    i, j, state, ops, n = jax.lax.while_loop(
-        cond, body, (tlen - 1, qlen - 1, jnp.int32(0), ops, jnp.int32(0))
-    )
-    # leading deletion of i+1 target bases, then leading insertion of j+1
-    step = jnp.arange(max_steps, dtype=jnp.int32)
-    ops = jnp.where(
-        (step >= n) & (step < n + jnp.maximum(i + 1, 0)), jnp.int8(1), ops
-    )
-    n = n + jnp.maximum(i + 1, 0)
-    ops = jnp.where(
-        (step >= n) & (step < n + jnp.maximum(j + 1, 0)), jnp.int8(2), ops
-    )
-    n = n + jnp.maximum(j + 1, 0)
-    return ops, n
-
-
 @functools.partial(jax.jit, static_argnames=("n_rows", "scores"))
 def _score_batch(q, qlen, t, tlen, n_rows, scores):
     f = jax.vmap(
@@ -280,16 +239,6 @@ def _global_batch(q, qlen, t, tlen, q_left_ext, n_rows, scores):
         return best[3], iden, tleft
 
     return jax.vmap(one)(q, t, qlen, tlen, q_left_ext)
-
-
-@functools.partial(jax.jit, static_argnames=("n_rows", "scores"))
-def _ops_batch(q, qlen, t, tlen, n_rows, scores):
-    def one(qq, tt, ql, tl):
-        best, dirs = _extz_one(qq, tt, ql, tl, True, n_rows, scores)
-        ops, n = _backtrack_ops_one(dirs, ql, tl, n_rows + 1)
-        return best[3], ops, n
-
-    return jax.vmap(one)(q, t, qlen, tlen)
 
 
 DEFAULT_SCORES = (MATCH_SC, MIS_SC, GAP_OPEN, GAP_EXT)
@@ -323,16 +272,3 @@ def extz_global_batch(q, qlen, t, tlen, q_left_ext=None, scores=DEFAULT_SCORES):
         n_rows, tuple(scores),
     )
     return score, iden, tleft  # JAX arrays (async); caller syncs
-
-
-def extz_ops_batch(q, qlen, t, tlen, scores=DEFAULT_SCORES):
-    """Global alignment returning per-step ops for MSA column building.
-
-    Returns (score [B], ops [B, LQ+LT] int8 right-to-left 0=M 1=D 2=I 3=pad,
-    n_steps [B])."""
-    n_rows = int(q.shape[1] + t.shape[1] - 1)
-    score, ops, n = _ops_batch(
-        jnp.asarray(q), jnp.asarray(qlen, jnp.int32), jnp.asarray(t),
-        jnp.asarray(tlen, jnp.int32), n_rows, tuple(scores),
-    )
-    return score, ops, n  # JAX arrays (async); caller syncs

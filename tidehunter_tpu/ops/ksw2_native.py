@@ -3,8 +3,7 @@ results as ops/ksw2.global_with_cigar + backtrack_left_end, C speed.
 
 The partition walk's alignments are tiny (mean ~34 bp on the headline
 workload) and strictly sequential per chain; resolving them host-side in C
-removes every partition-stage device round trip (~25 ms each on this
-platform). Parity with the NumPy oracle is pinned by
+removes every partition-stage device round trip. Parity with the NumPy oracle is pinned by
 tests/test_ksw2_native.py.
 """
 

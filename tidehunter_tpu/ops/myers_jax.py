@@ -1,5 +1,5 @@
 """Batched device Myers bit-parallel infix (HW) search — edlib-kernel
-equivalent on TPU.
+equivalent in plain XLA.
 
 The reference vendors edlib (C++, 64-bit blocks) for adapter searches
 (reference edlib/src/edlib.cpp:388-424 calculateBlock; only HW/LOC via

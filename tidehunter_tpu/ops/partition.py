@@ -13,8 +13,8 @@ single chain can yield several TR regions.
 The walk itself is written once as a GENERATOR (partition_walk) that yields
 alignment requests ``(query, target, q_left_ext)`` and receives
 ``(iden_n, t_left_ext)``. The host oracle wrapper resolves each request with
-ops/ksw2; the TPU engine drives many walks concurrently and resolves whole
-rounds of requests with one batched Pallas kernel call per length bucket.
+ops/ksw2; the device engine drives many walks concurrently and resolves
+whole rounds of requests with one batched kernel call per length bucket.
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ This module re-derives partial order alignment from the published algorithm
     when gaps outnumber the best base; coverage = #units whose row shows the
     consensus base at that column
 
-The TPU path re-expresses unit-vs-profile alignment as device-resident
+The device path re-expresses unit-vs-profile alignment as device-resident
 profile-POA kernels (ops/poa_profile.py on host, ops/msa_device.py on
 device); this graph oracle is their ground truth.
 """

@@ -1,4 +1,4 @@
-"""Profile-POA consensus: the TPU-native reformulation of abPOA.
+"""Profile-POA consensus: the accelerator-native reformulation of abPOA.
 
 Instead of a partial-order GRAPH grown per unit (host oracle, ops/poa.py),
 the MSA state is a column PROFILE: per column, base counts and occupancy.

@@ -1,8 +1,8 @@
-"""Multi-chip / multi-host scale-out: data parallelism over a device mesh.
+"""Multi-card / multi-host scale-out: data parallelism over a device mesh.
 
 The reference's entire scale-out story is a pthread pool over reads on one
 host (reference src/main.c:273-291,396-426); reads are fully independent.
-The TPU-native equivalent (SURVEY.md §5.8): a 1-D 'dp' mesh over all chips,
+The device equivalent (SURVEY.md §5.8): a 1-D 'dp' mesh over all cards,
 each host streaming its own input shard; padded read/alignment batches are
 sharded over 'dp' and kernels run under jit(shard_map) with explicit
 shardings (ops/wavefront.py, ops/msa_device.py consult the active-mesh
@@ -34,7 +34,7 @@ def make_mesh(n_devices: Optional[int] = None) -> Mesh:
 # --- active mesh registry -------------------------------------------------
 #
 # The production kernels (ops/wavefront.py, ops/msa_device.py) consult this
-# to (a) scale their fixed batch shapes by the mesh size and (b) route
+# to (a) scale their batch shapes by the mesh size and (b) route
 # their pallas calls through jax.shard_map over the 'dp' axis.  One mesh
 # per process: the engine installs it at construction (make_engine).
 
@@ -57,7 +57,7 @@ def active_mesh_n() -> int:
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """jax.distributed bootstrap for multi-host pods; no-op when single."""
+    """jax.distributed bootstrap for multi-host runs; no-op when single."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(

@@ -1,7 +1,7 @@
 """Per-read pipeline: seed -> chain -> partition -> consensus.
 
 Orchestration mirror of the reference core (tidehunter_core, reference
-src/tidehunter.c:23-60). This is the host-side oracle path; the TPU runner
+src/tidehunter.c:23-60). This is the host-side oracle path; the device runner
 (pipeline/runner.py) executes the same stages with batched device kernels
 and falls back to these routines per read.
 """

@@ -71,7 +71,7 @@ def run(
     """Stream the input and emit results chunk by chunk, in input order.
 
     `process_chunk(chunk, mtp) -> list[TandemResult]` defaults to the
-    sequential host oracle; the TPU engine injects its batched version.
+    sequential host oracle; the device engine injects its batched version.
 
     `shard=(i, n)` makes this process consume reads i, i+n, i+2n, ... —
     the multi-host data-parallel input sharding (SURVEY.md §5.8): each
